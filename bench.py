@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 """Driver-captured benchmark ORCHESTRATOR.
 
-Round-4 postmortem (VERDICT r4 missing #1): the old bench measured all
+Round-4 postmortem: the old bench measured all
 three metrics in ONE process and buffered every JSON line until the
 end, so when the expensive real-panel metric blew the driver's window
 (rc=124) even the successfully-measured numbers were lost.  This
-version is a thin orchestrator that never touches the TPU itself:
+version is a thin orchestrator that never touches the device itself:
 
   * every metric runs in its own SUBPROCESS under a hard `timeout`
     (fresh device context, tables freed on exit, a hang is contained);
@@ -61,7 +61,7 @@ def quiesce(tol: float = 1.0, timeout: float = 240) -> bool:
     for 1-min loadavg <= tol (round-3 lesson: a concurrent 34 GB index
     build corrupted the official number by 45%)."""
     if "DTK_QUIESCE_TOL" in os.environ or "DTK_QUIESCE_TIMEOUT" in os.environ:
-        # ADVICE r4: never let a stale override silently neuter the guard
+        # never let a stale override silently neuter the guard
         print("# quiesce: tol/timeout OVERRIDDEN via DTK_QUIESCE_* — "
               "numbers from this run are NOT official", file=sys.stderr,
               flush=True)
@@ -78,7 +78,7 @@ def quiesce(tol: float = 1.0, timeout: float = 240) -> bool:
         if time.time() - t0 >= timeout:
             print(f"# WARNING: host still contended (loadavg {load1:.2f}"
                   f" > {tol}) after {timeout:.0f}s — numbers may be "
-                  f"corrupted (see PERF.md round-3 postmortem)",
+                  f"corrupted by host contention",
                   file=sys.stderr, flush=True)
             return False
         print(f"# quiesce: loadavg {load1:.2f} > {tol}, waiting...",
@@ -159,12 +159,12 @@ def main():
         env = {"DTK_SF_BG": os.environ.get("DTK_SF_BG", "real"),
                "DTK_SF_PAIRS": os.environ.get("DTK_SF_PAIRS", "2000000"),
                "DTK_SF_STEADY": os.environ.get("DTK_SF_STEADY", "5"),
-               # at scale the retry tier IS the right design (measured:
-               # overflow is only 0.43% of pairs but the flat-view
-               # referee handles them at Python speed — a cached E=4096
-               # device tier resolves them ~100x cheaper; the opposite
-               # holds on the small real-motif panel, where overflow is
-               # 84%+ and the NATIVE referee pool wins)
+               # at scale the retry tier IS the right design: overflow
+               # pairs are a small share, and a cached E=4096 device
+               # tier resolves them far cheaper than the host referee;
+               # the opposite holds on the small real-motif panel, where
+               # most survivors overflow and the NATIVE referee pool
+               # wins)
                "DTK_SF_RETRY": os.environ.get("DTK_SF_RETRY", "4096"),
                "DTK_PREFILTER_MULT":
                    os.environ.get("DTK_PREFILTER_MULT", "16")}

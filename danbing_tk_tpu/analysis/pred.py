@@ -11,9 +11,12 @@ Pipeline (pred.h:166-233):
      matrix (TSV)
 
 The per-locus loop is a ragged-segment computation; on device it becomes a
-segment-mean over the ikmer columns (fixed-shape scatter/gather), so one
-jitted call covers all loci.  All arithmetic is float32 like the
-reference's Eigen path.
+segment-mean over the ikmer columns, summed column by column in the
+reference's order (a scan over a padded index plane), so one jitted call
+covers all loci and every run gives the same bits.  All arithmetic is
+float32 like the reference's Eigen path; where the backend divides
+IEEE-exactly (the CPU) the result equals the numpy path's bits, while
+XLA's GPU division (div.full.f32) may land up to 2 ulp off per divide.
 
 Deviation: the reference leaves Bias columns of skipped loci (no kmers or
 no invariant kmers) as uninitialized memory (pred.h:218); we write 0.
@@ -96,8 +99,20 @@ def bias_correction_np(gt: np.ndarray, nk_cum, nik_cum, iki, ikc):
     return bias_mat
 
 
+def _sequential_sum(xs, init, term=lambda x: x):
+    """acc = init + term(xs[0]) + term(xs[1]) + ... in exactly that order
+    (f32, one rounding per add, like the reference's naive loops).  A
+    scatter-add or a tree reduction would reorder the sums, and on a GPU
+    a scatter-add runs in atomic order, which changes between runs."""
+    import jax
+
+    return jax.lax.scan(lambda acc, x: (acc + term(x), None), init, xs)[0]
+
+
 def bias_correction_jax(gt, nk_cum, nik_cum, iki, ikc):
-    """Device version: segment-mean over invariant-kmer columns.
+    """Device version: per-locus mean over invariant-kmer columns, summed
+    in the same order as bias_correction_np (see the module docstring
+    for the division rounding).
 
     gt: (ns, nk) f32.  Returns (corrected_gt, bias_mat).
     """
@@ -108,22 +123,33 @@ def bias_correction_jax(gt, nk_cum, nik_cum, iki, ikc):
     nk_cum = np.asarray(nk_cum, dtype=np.int64)
     nik_cum = np.asarray(nik_cum, dtype=np.int64)
     iki = np.asarray(iki, dtype=np.int64)
-    # locus id per invariant kmer / per kmer column (host-precomputed)
-    ik_locus = np.searchsorted(nik_cum, np.arange(len(iki)), side="right")
+    # locus id per kmer column (host-precomputed)
     col_locus = np.searchsorted(nk_cum, np.arange(nk), side="right")
-    nik_per = np.diff(np.concatenate([[0], nik_cum]))
+    nik_start = np.concatenate([[0], nik_cum[:-1]])
+    nik_per = nik_cum - nik_start
     has_ik = (nik_per > 0) & (np.diff(np.concatenate([[0], nk_cum])) > 0)
+    # (maxnik, n_tr) plane of each locus's ratio columns in order; the
+    # padding points at an all-zero column (adding +0.0 is exact)
+    maxnik = max(int(nik_per.max(initial=0)), 1)
+    j = np.arange(maxnik)[:, None]
+    cols = np.where(j < nik_per[None, :], nik_start[None, :] + j, len(iki))
 
     gt = jnp.asarray(gt)
-    # per-sample mean ratio over each locus's invariant kmers
     ratios = gt[:, iki] / jnp.asarray(ikc, jnp.float32)[None, :]
-    sums = jnp.zeros((ns, n_tr), jnp.float32).at[:, ik_locus].add(ratios)
+    ratios = jnp.concatenate([ratios, jnp.zeros((ns, 1), jnp.float32)],
+                             axis=1)
+    # per-sample mean ratio over each locus's invariant kmers
+    rT = ratios.T                                  # (nik + 1, ns)
+    sums = _sequential_sum(jnp.asarray(cols),
+                           jnp.zeros((n_tr, ns), jnp.float32),
+                           lambda c: rT[c]).T
     denom = jnp.asarray(np.maximum(nik_per, 1), jnp.float32)
     bias = sums / denom[None, :]                   # (ns, n_tr)
     # normalize each locus's bias vector to mean 1 over samples; a
     # zero-mean locus (no invariant coverage anywhere) is skipped
     # entirely, matching bias_correction_np's pinned semantics
-    mean_bias = bias.mean(axis=0, keepdims=True)
+    mean_bias = (_sequential_sum(bias, jnp.zeros((n_tr,), jnp.float32))
+                 / jnp.float32(ns))[None, :]
     active = jnp.asarray(has_ik)[None, :] & (mean_bias != 0.0)
     bias = bias / jnp.where(active, mean_bias, 1.0)
     div = jnp.where(active[0][col_locus][None, :],

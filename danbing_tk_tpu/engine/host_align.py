@@ -6,11 +6,12 @@ Role in the framework
 ---------------------
 This is the *compatibility oracle* and referee: it reproduces the reference
 outputs byte-for-byte (.kam, .tr.kmers, .trkmc.ar, .tr.summary.txt,
-.bub.kmdb) and defines the per-pair semantics that the TPU device engine
+.bub.kmdb) and defines the per-pair semantics that the device engine
 (engine/device_align.py) implements in vectorized fixed-shape form.  The
 device engine routes the rare pairs whose outcome depends on the
 reference's early-stop scan-order (ties / test2 boundary) through
-``process_pair`` here, guaranteeing end-to-end bit-exactness at TPU speed.
+``process_pair`` here, guaranteeing end-to-end bit-exactness at device
+speed.
 
 Implementation-defined details replicated:
   * unordered_map iteration order (utils.stdumap) for all output files

@@ -3,7 +3,7 @@
 ``build/libdtk_thread.so`` implements the same algorithm as
 ``engine.threading`` (isThreadFeasible + error correction + CIGAR
 surgery) at C++ speed.  The host threading fallback is the serial
-bottleneck of threading-mode runs — the TPU DFA resolves clean walks,
+bottleneck of threading-mode runs — the device DFA resolves clean walks,
 everything else lands here.
 
 The wrapper returns results in the exact shapes ``host_align._thread_pair``

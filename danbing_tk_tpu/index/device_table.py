@@ -1,11 +1,11 @@
 """Open-addressing hash tables for device-resident k-mer lookup.
 
 The reference probes ``std::unordered_map`` per k-mer (pointer-chasing,
-aQueryFasta_thread.cpp:190-245).  On TPU we replace this with flat
-power-of-two open-addressing tables in HBM, probed by vectorized gathers
-(linear probing, all lanes advance until resolved).  Keys are canonical
-k-mers (<= 62 bits) split into u32 (lo, hi) planes -- TPUs have no native
-64-bit integers, so all device arithmetic is 32-bit.
+aQueryFasta_thread.cpp:190-245).  On the device we replace this with
+flat power-of-two open-addressing tables in device memory, probed by
+vectorized gathers.  Keys are canonical k-mers (<= 62 bits) split into
+u32 (lo, hi) planes, so all device arithmetic is 32-bit (the engine runs
+with 64-bit types off).
 
 Three table flavors:
   * KmerTable       : kmer -> u32 value          (kmerDBi)
@@ -160,11 +160,11 @@ def lookup_np(tab: OATable, keys: np.ndarray,
 
 # ---------------- JAX probe ----------------
 
-# ---------------- Bucketized multi-level table (TPU fast path) ----------
+# ---------------- Bucketized multi-level table (device fast path) -------
 #
 # Linear probing needs a data-dependent probe loop (max displacement ~50 at
-# load 0.6), which on TPU costs one HBM gather round per probe for EVERY
-# lane.  The bucketized layout instead packs ~lambda keys per 8-slot bucket
+# load 0.6), which costs one device-memory gather round per probe for
+# EVERY lane.  The bucketized layout instead packs ~lambda keys per 8-slot bucket
 # in ONE contiguous row, so a single gather fetches all candidates;
 # overflowing keys cascade into geometrically smaller levels (2-3 total).
 # Lookup = one wide gather per level, fully vectorized, no loops.
@@ -184,8 +184,8 @@ class BucketTable:
     """levels: list of (packed (nb, BUCKET, W) u32, salt).  Plane layout
     per slot: lo, hi, [locus if composite], val, [val2 if nval == 2] —
     W = 2 + composite + nval.  A second value plane rides in the SAME
-    row, so fetching it is free (the gather unit is descriptor-bound,
-    not width-bound): the dbi table uses it to carry the TR/flank
+    row, so the same row gather fetches it: the dbi table uses it to
+    carry the TR/flank
     annotation of single-locus k-mers, eliminating most composite-table
     annotation probes."""
 
@@ -233,8 +233,7 @@ def build_bucket_table(keys, vals, loci=None, lam: float = 5.0,
         # expected) and search up to 16 salts for a zero-overflow layout,
         # making 2 levels the norm at any table size.
         # (fat_threshold enables a single-level lam=0.5 layout for small
-        # tables; measured SLOWER on v5e — a 16x bigger table loses more
-        # to gather locality than the saved second-level gather — so it
+        # tables: a 16x bigger table for one gather less per probe; it
         # defaults off.)
         fat = len(keys) <= fat_threshold
         if fat:
@@ -290,8 +289,8 @@ def build_bucket_table(keys, vals, loci=None, lam: float = 5.0,
         if v2 is not None:
             tab[bb, pp, vp + 1] = v2[sel]
         del sel, bb, pp
-        # store rows FLAT (nb, BUCKET*W): 3-D row gathers lower ~3x slower
-        # than 2-D on TPU; lookups reshape after the gather
+        # store rows FLAT (nb, BUCKET*W): one 2-D row gather per probe;
+        # lookups reshape after the gather
         levels.append((tab.reshape(nb, BUCKET * W), s))
         idx = next_idx
         nidx = len(idx)

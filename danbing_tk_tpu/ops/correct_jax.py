@@ -1,4 +1,4 @@
-"""Fixed-shape bounded-edit error-correction scoring (VERDICT r4 #3).
+"""Fixed-shape bounded-edit error-correction scoring.
 
 The reference's threading-mode error correction scores 8 hypothesis
 families (62 extension counters) per failure site with serial
@@ -26,11 +26,11 @@ Two implementations share the chain/gate tables:
   make_site_scorer — jit-compiled batch scorer probing the DeviceRPGG
                     graph table (same table the DFA walk uses).
 
-Measured trade (PERF.md round 5): ~1.3k graph probes per site makes
-this stage descriptor-bound — on a 1-chip + few-host-core geometry the
-batched C++ fallback (native/dtk_thread.cpp dtk_thread_pairs) hides
-entirely in the device-queue shadow, so the device stage is kept as a
-validated building block rather than wired into the hot path.
+Trade: ~1.3k graph probes per site make this stage gather-bound, while
+the batched C++ fallback (native/dtk_thread.cpp dtk_thread_pairs) runs
+in the shadow of the device queue, so the device stage is kept as a
+validated building block rather than wired into the hot path (whether
+it pays on the current device is an open ROADMAP item).
 """
 
 from __future__ import annotations
@@ -277,7 +277,7 @@ def make_site_scorer(drp, B: int, k: int = 21, mes: int = 2, jit=True):
       loc:       (B,) i32 destination locus per site
 
     Probe budget: 21 mask + 62*k chain lookups per site (~1.3k rows) —
-    descriptor-bound by design; see the module docstring."""
+    gather-bound by design; see the module docstring."""
     import jax
     import jax.numpy as jnp
 

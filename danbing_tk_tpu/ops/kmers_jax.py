@@ -10,13 +10,13 @@ Re-derivation of the reference rolling-kmer semantics
 
 K-mers are *bit-packed*, so the "rolling" construction becomes k shifted
 ORs per plane with no carries: base j of a window occupies bit slot
-2*(k-1-j) (forward) or 2*j complemented (reverse).  TPUs have no native
-64-bit integers, so keys live as (lo, hi) u32 pairs end-to-end; lo holds
-key bits [0,32) and hi bits [32,64).  Windows containing an invalid base
+2*(k-1-j) (forward) or 2*j complemented (reverse).  The engine runs with
+64-bit types off, so keys live as (lo, hi) u32 pairs end-to-end; lo
+holds key bits [0,32) and hi bits [32,64).  Windows containing an invalid base
 or overrunning the read length are masked to the EMPTY sentinel
 (0xFFFFFFFF in both planes), mirroring the reference's -1ULL.
 
-Costs: O(k * B * NK) VPU ops; XLA fuses the shifted ORs.
+Costs: O(k * B * NK) elementwise ops; XLA fuses the shifted ORs.
 """
 
 from __future__ import annotations

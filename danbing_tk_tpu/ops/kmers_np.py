@@ -1,4 +1,4 @@
-"""Host-side (numpy) k-mer primitives for danbing-tk-tpu.
+"""Host-side (numpy) k-mer primitives.
 
 These implement the exact semantics of the reference danbing-tk L1 kernel layer
 (see /root/reference/src/aQueryFasta_thread.h:117-343 and src/kmer.hpp for the

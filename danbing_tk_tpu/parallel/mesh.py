@@ -1,6 +1,7 @@
 """Multi-chip execution: shard_map data parallelism over a device mesh.
 
-Mapping of the reference's parallelism inventory (SURVEY.md §2.4) onto TPU:
+Mapping of the reference's parallelism inventory (SURVEY.md §2.4) onto a
+device mesh:
   X1 (pthread pool + semaphores)  -> read batches data-parallel over the
                                      "data" mesh axis; host streaming feeds
                                      all chips
@@ -8,16 +9,18 @@ Mapping of the reference's parallelism inventory (SURVEY.md §2.4) onto TPU:
                                      device-local count shard; cross-chip
                                      merge is one reduction at finalize
                                      (counts are commutative, so no per-batch
-                                     psum traffic on ICI)
+                                     collective traffic)
   X4 (Snakemake/sbatch scale-out) -> multi-host: each host runs a runner on
                                      its local devices; final counts merged
                                      with a single all-reduce
 
-The RPGG tables are replicated per device by default (HBM-resident; a
-genome-wide pan index is a few GB vs ~95 GB v5p HBM).  For indexes beyond
-one chip's HBM, make_sharded_step(shard_index=True) shards the dbi + trfl
-hash tables over the same mesh axis and answers probes collectively
-(parallel/sharded_index.py).
+The RPGG tables are replicated per device by default (device-resident,
+passed to the step as jit arguments).  For indexes beyond one device's
+memory, make_sharded_step(shard_index=True) shards the dbi + trfl hash
+tables over the same mesh axis and answers probes collectively
+(parallel/sharded_index.py).  The mesh is one flat "data" axis: the
+devices of one host are joined all to all, so no axis follows a link
+topology.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def make_sharded_step(drp: da.DeviceRPGG, cfg: AlignConfig, mesh: Mesh,
     shard_index=True additionally shards the dbi + trfl hash tables over
     the same axis (1/D of every level's rows per chip) and answers their
     probes collectively — the configuration for indexes larger than one
-    chip's HBM (see parallel/sharded_index.py).
+    device's memory (see parallel/sharded_index.py).
     """
     ndev = mesh.devices.size
     assert P_global % ndev == 0
@@ -66,18 +69,12 @@ def make_sharded_step(drp: da.DeviceRPGG, cfg: AlignConfig, mesh: Mesh,
     if shard_index:
         from . import sharded_index as si
 
-        stacks = {}
         metas = {}
+        stacks = {}
         for name in ("dbi", "trfl"):
             tab = getattr(drp, f"{name}_tab")
-            shards, meta = si.shard_table(tab, ndev)
+            stacks[name], meta = si.sharded_levels(drp, name, tab, mesh)
             metas[name] = (meta, tab.composite)
-            stacks[name] = [
-                jax.device_put(
-                    jnp.asarray(np.stack([shards[d][lv]
-                                          for d in range(ndev)])),
-                    NamedSharding(mesh, P("data")))
-                for lv in range(len(meta))]
         nlv = {name: len(metas[name][0]) for name in stacks}
         tab_args = tuple(t for name in ("dbi", "trfl")
                          for t in stacks[name])
@@ -103,25 +100,27 @@ def make_sharded_step(drp: da.DeviceRPGG, cfg: AlignConfig, mesh: Mesh,
     else:
         probe_fns = None
 
-    local_step = da.make_step(drp, cfg, P_local, L, expand_cap=expand_cap,
-                              with_annot=with_annot,
-                              with_bubbles=with_bubbles, jit=False,
-                              probe_fns=probe_fns, with_qual=with_qual)
+    local_step, local_tabs = da.make_step(
+        drp, cfg, P_local, L, expand_cap=expand_cap, with_annot=with_annot,
+        with_bubbles=with_bubbles, jit=False, probe_fns=probe_fns,
+        with_qual=with_qual)
+    # the replicated tables ride as jit arguments too, one copy per device
+    rep_tabs = replicated(drp, mesh, local_tabs)
 
     @jax.jit
-    def sharded_step(state, codes, rlen, live, qmask=None):
-        def per_device(state_l, codes_l, rlen_l, live_l, *rest):
+    def sharded_step(rep_tabs, state, codes, rlen, live, qmask=None):
+        def per_device(tabs_l, state_l, codes_l, rlen_l, live_l, *rest):
             if with_qual:
-                qmask_l, tabs_l = rest[0], rest[1:]
+                qmask_l, sh_l = rest[0], rest[1:]
             else:
-                qmask_l, tabs_l = None, rest
+                qmask_l, sh_l = None, rest
             if shard_index:
-                it = iter(tabs_l)
+                it = iter(sh_l)
                 for name in ("dbi", "trfl"):
                     ctx[name] = [next(it)[0] for _ in range(nlv[name])]
             state_l = jax.tree.map(lambda x: x[0], state_l)
-            new_state, out = local_step(state_l, codes_l, rlen_l, live_l,
-                                        qmask=qmask_l)
+            new_state, out = local_step(tabs_l, state_l, codes_l, rlen_l,
+                                        live_l, qmask=qmask_l)
             new_state = jax.tree.map(lambda x: x[None], new_state)
             return new_state, out
 
@@ -129,17 +128,33 @@ def make_sharded_step(drp: da.DeviceRPGG, cfg: AlignConfig, mesh: Mesh,
         return jax.shard_map(
             per_device,
             mesh=mesh,
-            in_specs=(P("data"), P("data"), P("data"), P("data"))
+            in_specs=(P(), P("data"), P("data"), P("data"), P("data"))
             + tuple(P("data") for _ in extra)
             + tuple(P("data") for _ in tab_args),
             out_specs=(P("data"), P("data")),
             check_vma=False,
-        )(state, codes, rlen, live, *extra, *tab_args)
+        )(rep_tabs, state, codes, rlen, live, *extra, *tab_args)
 
     if with_qual:
-        return sharded_step, P_local
+        return (lambda state, codes, rlen, live, qmask:
+                sharded_step(rep_tabs, state, codes, rlen, live,
+                             qmask)), P_local
     return (lambda state, codes, rlen, live:
-            sharded_step(state, codes, rlen, live)), P_local
+            sharded_step(rep_tabs, state, codes, rlen, live)), P_local
+
+
+def mesh_key(mesh: Mesh) -> tuple:
+    return tuple(int(d.id) for d in mesh.devices.flat)
+
+
+def replicated(drp: da.DeviceRPGG, mesh: Mesh, tabs: dict) -> dict:
+    """One copy of each table on every mesh device, memoized on the
+    DeviceRPGG so the primary step and every retry tier share it."""
+    rep = NamedSharding(mesh, P())
+    key = mesh_key(mesh)
+    return {name: drp.dev(("rep", name, key),
+                          lambda t=t: jax.device_put(t, rep))
+            for name, t in tabs.items()}
 
 
 def init_sharded_state(drp: da.DeviceRPGG, mesh: Mesh):

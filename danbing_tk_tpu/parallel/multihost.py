@@ -12,9 +12,9 @@ simple and fault-tolerant:
      array (`merge_count_files`), either via files on shared storage or
      one jax.distributed psum at the end
 
-With jax.distributed initialized (multi-controller), `global_merge` does
-the final reduction over ICI/DCN; otherwise file-based merging works
-across any scheduler.
+With jax.distributed initialized (multi-controller, `init_distributed`),
+`global_merge` does the final reduction over the coordination service;
+otherwise file-based merging works across any scheduler.
 """
 
 from __future__ import annotations
@@ -24,6 +24,18 @@ import glob
 import numpy as np
 
 from ..io import binary as bio
+
+
+def init_distributed(port: int, nproc: int, pid: int) -> None:
+    """jax.distributed over localhost with one device per process:
+    process ``pid`` sees only local device ``pid``.  A GPU process
+    reserves most of its card's memory when it starts, so a second
+    process on the same card would fail for want of memory.  (The CPU
+    backend ignores the device pinning.)"""
+    import jax
+
+    jax.distributed.initialize(f"localhost:{port}", num_processes=nproc,
+                               process_id=pid, local_device_ids=[pid])
 
 
 def shard_predicate(host_id: int, nhosts: int):
@@ -48,7 +60,7 @@ def merge_count_files(pattern: str) -> np.ndarray:
 def global_merge(local_counts):
     """Cross-host reduction of the final count vector (requires
     jax.distributed.initialize on every host): all-gather one row per
-    process over DCN, sum on host.  Counts are integers and addition is
+    process, sum on host.  Counts are integers and addition is
     exact/commutative, so the merged vector is byte-equal to a
     single-process run regardless of shard order.
 

@@ -4,12 +4,12 @@ retry -> host referee -> checkpoint -> finalize) executing over a
 jax.sharding.Mesh.
 
 This is DeviceAlignRunner with the device programs swapped for their
-mesh-parallel twins (SURVEY §2.4 TPU-native mapping):
+mesh-parallel twins (SURVEY §2.4 parallelism mapping):
   * the full step runs under shard_map: read pairs sharded over "data",
     per-device count-state shards, RPGG tables replicated — or, with
     ``shard_index=True``, the dbi/trfl hash tables row-sharded over the
     same axis with collective probes (parallel/sharded_index.py), the
-    configuration for indexes larger than one chip's HBM
+    configuration for indexes larger than one device's memory
   * the prefilter is a jit with data-sharded inputs (GSPMD partitions
     the probe gathers; no collectives needed with replicated tables)
   * finalize merges the per-device count shards with one reduction —
@@ -37,7 +37,8 @@ from . import mesh as pm
 class ShardedAlignRunner(DeviceAlignRunner):
     def __init__(self, rpgg, cfg, mesh=None, batch_pairs: int = 4096,
                  max_read_len: int = 256, expand_cap: int = 512,
-                 retry_expand: int = 0, shard_index: bool = False):
+                 retry_expand: int = 0, shard_index: bool = False,
+                 drp=None):
         self.mesh = mesh if mesh is not None else pm.make_mesh()
         self.shard_index = shard_index
         self.ndev = self.mesh.devices.size
@@ -45,7 +46,7 @@ class ShardedAlignRunner(DeviceAlignRunner):
         super().__init__(rpgg, cfg, batch_pairs=batch_pairs,
                          max_read_len=max_read_len,
                          expand_cap=expand_cap,
-                         retry_expand=retry_expand)
+                         retry_expand=retry_expand, drp=drp)
 
     # -- hooks --
 
@@ -92,11 +93,14 @@ class ShardedAlignRunner(DeviceAlignRunner):
                 jax.device_put(live, sh))
         # replicated tables: plain jit with data-sharded inputs — GSPMD
         # splits the probe gathers across the mesh, tables replicate
-        raw = da.make_prefilter_step(self.drp, cfg, Pp, self.L, jit=False)
+        raw, tabs = da.make_prefilter_step(self.drp, cfg, Pp, self.L,
+                                           jit=False)
+        tabs = pm.replicated(self.drp, self.mesh, {"pre": tabs})["pre"]
         sh = self._sharding()
-        jitted = jax.jit(raw, in_shardings=(sh, sh, sh))
+        rep = NamedSharding(self.mesh, P())
+        jitted = jax.jit(raw, in_shardings=(rep, sh, sh, sh))
         return lambda codes, rlen, live: jitted(
-            jax.device_put(codes, sh), jax.device_put(rlen, sh),
+            tabs, jax.device_put(codes, sh), jax.device_put(rlen, sh),
             jax.device_put(live, sh))
 
     def _dev_state(self, key: str) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Index sharding across the device mesh (model parallelism for the RPGG).
 
-The production pan RPGG is ~1.2e9 k-mers; its bucket tables (~100+ GB)
-cannot be replicated into one chip's HBM, so each chip holds a 1/D
-row-block of every hash level and probes are answered collectively:
+The production pan RPGG is ~1.2e9 k-mers; for an index larger than one
+device's memory each device holds a 1/D row-block of every hash level
+and probes are answered collectively:
 
     1. all_gather the local query block along the mesh axis
        (every chip sees the global batch of k-mer keys)
@@ -12,13 +12,10 @@ row-block of every hash level and probes are answered collectively:
     3. psum_scatter the (found, val) planes — the single owner's answer
        survives the sum and lands back on the chip that asked
 
-Per probe this moves 8B/key over ICI each way (vs 512B/key of HBM gather
-locally) — the collective cost is a small fraction of the local probe.
-This composes with data parallelism: the same "data" axis shards both
-the read batch and the index rows.
-
-SURVEY.md §2.4 "TPU-native mapping": the kmerDBi hash lookup sharded
-with all-to-all k-mer routing.
+Per probe this moves the query keys to every device and one answer
+back.  This composes with data parallelism: the same "data" axis shards
+both the read batch and the index rows (SURVEY.md §2.4: the kmerDBi
+hash lookup sharded with k-mer routing).
 """
 
 from __future__ import annotations
@@ -48,6 +45,25 @@ def shard_table(tab: dt.BucketTable, ndev: int):
             shards[d].append(t[d * rows:(d + 1) * rows])
         meta.append((salt, nb, rows))
     return shards, meta
+
+
+def sharded_levels(drp: da.DeviceRPGG, name: str, tab: dt.BucketTable,
+                   mesh: Mesh):
+    """(per-level (D, rows, W) arrays sharded over "data", meta) for one
+    table, placed straight from host memory and memoized on the
+    DeviceRPGG (the primary step, retry tiers and prefilter share it)."""
+    from .mesh import mesh_key
+
+    ndev = mesh.devices.size
+    sharding = NamedSharding(mesh, P("data"))
+
+    def place():
+        shards, meta = shard_table(tab, ndev)
+        return [jax.device_put(np.stack([shards[d][lv]
+                                         for d in range(ndev)]), sharding)
+                for lv in range(len(meta))], meta
+
+    return drp.dev(("shard", name, mesh_key(mesh)), place)
 
 
 def lookup_bucket_sharded(local_levels, meta, composite, q_lo, q_hi,
@@ -108,7 +124,7 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig,
                            mesh: Mesh, P_global: int, L: int):
     """Genome-wide prefilter with BOTH the read batch and the kmerDBi
     sharded over the mesh — the configuration for indexes larger than a
-    single chip's HBM.  Decision-identical to the replicated prefilter.
+    single device's memory.  Decision-identical to the replicated prefilter.
 
     Returns (step(codes, rlen, live) -> survive (P_global,), P_local).
     """
@@ -117,14 +133,10 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig,
     P_local = P_global // ndev
     k, nf, nmf = cfg.ksize, cfg.n_filter, cfg.nm_filter
     ptab = drp.member_tab if drp.member_tab is not None else drp.dbi_tab
-    shards, meta = shard_table(ptab, ndev)
+    # per-level shards with a leading device axis; shard_map slices each
+    # device its own row block
+    stacked, meta = sharded_levels(drp, "pre", ptab, mesh)
     nlv = len(meta)
-    # stack per-level shards with a leading device axis; shard_map slices
-    # each chip its own row block
-    stacked = [jnp.asarray(np.stack([shards[d][lv] for d in range(ndev)]))
-               for lv in range(nlv)]
-    sharding = NamedSharding(mesh, P("data"))
-    stacked = [jax.device_put(t, sharding) for t in stacked]
 
     def local(codes_l, rlen_l, live_l, *tabs_l):
         levels = [t[0] for t in tabs_l]
@@ -138,7 +150,7 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig,
         return da.prefilter_decide(found, valid, nk, live_l, nmf, P_local)
 
     @jax.jit
-    def step(codes, rlen, live):
+    def step(stacked, codes, rlen, live):
         return jax.shard_map(
             local, mesh=mesh,
             in_specs=(P("data"), P("data"), P("data"))
@@ -146,4 +158,5 @@ def make_sharded_prefilter(drp: da.DeviceRPGG, cfg: AlignConfig,
             out_specs=P("data"), check_vma=False,
         )(codes, rlen, live, *stacked)
 
-    return step, P_local
+    return (lambda codes, rlen, live: step(stacked, codes, rlen, live),
+            P_local)

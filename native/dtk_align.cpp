@@ -1,5 +1,5 @@
 // Native host-referee engine: C++ twin of engine/host_align.process_pair
-// (asgn counting mode).  The TPU device engine resolves ~99% of pairs;
+// (asgn counting mode).  The device engine resolves ~99% of pairs;
 // pairs whose outcome depends on the reference's early-stop scan order
 // (vote ties / test2 boundary / expansion overflow) are recomputed
 // exactly on the host — this engine runs that path at C++ speed instead

@@ -1,4 +1,4 @@
-// danbing-tk-tpu native host runtime (ctypes-loaded shared library).
+// danbing-tk native host runtime (ctypes-loaded shared library).
 //
 // Provides the handful of host-side operations whose *exact* behavior is
 // implementation-defined in the reference toolchain and therefore cannot be
@@ -16,8 +16,8 @@
 //       `samtools fasta -n` stream via a title hashmap (second occurrence
 //       first, mirroring the reference reader semantics) and packs bases
 //       into fixed (2P, L) u8 batches ready for device upload.  This is
-//       the production IO path; Python ingest tops out far below TPU
-//       consumption rate.
+//       the production IO path; Python ingest tops out far below the
+//       device's consumption rate.
 //
 // Everything else in the host engine is pure Python/numpy or JAX.
 #include <algorithm>

@@ -1,6 +1,6 @@
 // Native graph-threading engine (C++ twin of engine/threading.py).
 //
-// The TPU DFA fast path resolves clean walks on-device; reads needing
+// The device DFA fast path resolves clean walks on-device; reads needing
 // error correction fall back to the host.  This engine makes that
 // fallback run at C++ speed.  Semantics mirror the (golden-verified)
 // Python implementation exactly: same hypothesis scoring, k-mer/CIGAR

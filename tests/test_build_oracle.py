@@ -1,4 +1,4 @@
-"""Second-oracle BUILD-pipeline test (VERDICT r1 item #8).
+"""Second-oracle BUILD-pipeline test.
 
 Runs build_rpgg over the reference's own bundled test assemblies
 (test/input/: HG00514/HG00733 regional contigs around a real chr12

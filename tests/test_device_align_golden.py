@@ -1,7 +1,8 @@
 """Device-aligner end-to-end bit-exactness vs reference golden outputs.
 
-Runs the full jitted pipeline (on the CPU backend in CI; identical program
-runs on TPU) and checks byte-equality of every output file.
+Runs the full jitted pipeline (on the CPU backend here; chip_smoke.py runs
+the same program on the GPU) and checks byte-equality of every output
+file.
 """
 
 import os

@@ -1,7 +1,7 @@
 """End-to-end eqtl pipeline oracle: the reference script/eqtl.noPerm.py
 is EXECUTED on a synthetic GTEx-shaped fixture (statsmodels shimmed) and
 our `danbing_tk_tpu eqtl` driver must write byte-identical
-{tissue}.v8.egenes.txt files (VERDICT r3 item 8 / SURVEY P12)."""
+{tissue}.v8.egenes.txt files."""
 
 import glob
 import gzip

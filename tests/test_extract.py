@@ -96,7 +96,7 @@ def test_trim_db_selection(golden_dir, tmp_path, monkeypatch):
 
 def test_device_extract_fastq(golden_dir):
     """Device runner, fastq input, -e 1: byte-exact vs the reference
-    golden (VERDICT r1 weak #7 — device fastq extraction untested)."""
+    golden."""
     from danbing_tk_tpu.engine.align_runner import DeviceAlignRunner
 
     rpgg = RPGG(os.path.join(golden_dir, "pan"))

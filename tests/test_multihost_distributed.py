@@ -1,4 +1,4 @@
-"""Real 2-process jax.distributed run (VERDICT r1 item #7, SURVEY §2.4 X4).
+"""Real 2-process jax.distributed run.
 
 Spawns two controller processes (2 virtual CPU devices each -> a 4-device
 global topology), each genotyping its round-robin shard of the golden

@@ -1,4 +1,4 @@
-"""-bu bubbles on the native production path (VERDICT r3 item 2).
+"""-bu bubbles on the native production path.
 
 The reference emits novel-edge (bubble) counts in its one monolithic
 pass (aQueryFasta_thread.cpp:2161-2166, dumpBubbles); the native-ingest

@@ -46,7 +46,7 @@ def test_native_reader_throughput(golden_dir):
         if rate > 100_000:
             break
     print(f"native reader: {rate:.0f} reads/s")
-    assert rate > 100_000  # C path must be far above TPU feed threshold
+    assert rate > 100_000  # C path must be far above the device feed rate
 
 def test_native_scrambled_pair_order(tmp_path):
     """Non-adjacent mates exercise the held-record/hashmap interplay:

@@ -1,5 +1,5 @@
-"""okam/-bu on the native path with the retry ladder + checkpointing
-(VERDICT r3 item #4): side outputs are re-serialized in pair order via
+"""okam/-bu on the native path with the retry ladder + checkpointing:
+side outputs are re-serialized in pair order via
 the ordinal-effect buffer, so a tiered run (overflow pairs resolved out
 of order on bigger-E device steps) and a crash-resumed run both produce
 byte-identical .kam/.bub/.trkmc.ar to the uninterrupted no-retry run

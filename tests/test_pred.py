@@ -50,32 +50,43 @@ def test_jax_matches_numpy():
     np.testing.assert_allclose(np.asarray(bias_jax), bias_np, rtol=1e-5)
 
 
-def test_full_flow_io(golden_dir, tmp_path):
-    # use the golden genotype twice as two "samples"
-    flat = bio.read_karray(os.path.join(golden_dir, "out.trkmc.ar"))
-    nk = len(flat)
-    # per-locus kmer counts from pan.tr.kmers
+SAMPLES = (("out.trkmc.ar", "30.0"), ("out.sim.trkmc.ar", "28.5"),
+           ("out.fq.trkmc.ar", "31.7"), ("out.bait.trkmc.ar", "29.3"))
+
+
+def _write_fixture(golden_dir, tmp_path, stride=0, nsamples=2):
+    """gt.meta / ikmer.meta over golden genotypes used as samples;
+    returns the number of kmer columns.  Invariant kmers: the first of
+    each locus with count 2, or with ``stride`` every stride-th kmer of
+    each locus with counts 1-3 (many terms per locus sum)."""
     from danbing_tk_tpu.apps.ktools import ksi
 
     nk_cum = np.array(ksi(os.path.join(golden_dir, "pan.tr.kmers")),
                       dtype=np.uint32)
-    # invent invariant kmers: first kmer of each locus with count 2
-    iki, nik = [], []
+    iki, nik, ikc = [], [], []
     prev = 0
     for c in nk_cum:
         if c > prev:
-            iki.append(prev)
-            nik.append(len(iki))
-        else:
-            nik.append(len(iki))
+            cols = range(prev, c, stride) if stride else [prev]
+            iki.extend(cols)
+            ikc.extend((i % 3) + 1 if stride else 2 for i in cols)
+        nik.append(len(iki))
         prev = c
     bio.write_ikmer_meta(tmp_path / "ikmer.meta", nk_cum,
                          np.array(nik, np.uint32),
                          np.array(iki, np.uint32),
-                         np.full(len(iki), 2, np.uint8))
+                         np.array(ikc, np.uint8))
     with open(tmp_path / "gt.meta", "w") as f:
-        f.write(f"{golden_dir}/out.trkmc.ar\t30.0\n")
-        f.write(f"{golden_dir}/out.sim.trkmc.ar\t28.5\n")
+        for name, depth in SAMPLES[:nsamples]:
+            f.write(f"{golden_dir}/{name}\t{depth}\n")
+    return int(nk_cum[-1])
+
+
+def test_full_flow_io(golden_dir, tmp_path):
+    # use the golden genotype twice as two "samples"
+    flat = bio.read_karray(os.path.join(golden_dir, "out.trkmc.ar"))
+    nk = _write_fixture(golden_dir, tmp_path)
+    assert nk == len(flat)
     pred.run_pred(str(tmp_path / "gt.meta"), str(tmp_path / "ikmer.meta"),
                   str(tmp_path / "raw.gt"), str(tmp_path / "corr.gt"),
                   str(tmp_path / "bias.tsv"))
@@ -109,3 +120,18 @@ def test_zero_mean_bias_locus_skipped():
         gt.copy(), nk_cum, nik_cum, iki, ikc)
     np.testing.assert_allclose(np.asarray(corr_jax), g, rtol=1e-5)
     np.testing.assert_allclose(np.asarray(bias_jax), bias, rtol=1e-5)
+
+
+def test_jax_bits_equal_numpy(golden_dir, tmp_path):
+    """The device path sums in the numpy path's order, so the corrected
+    matrix and the printed bias table are byte-identical."""
+    _write_fixture(golden_dir, tmp_path, stride=3, nsamples=4)
+    for tag, use_jax in (("np", False), ("jax", True)):
+        pred.run_pred(str(tmp_path / "gt.meta"),
+                      str(tmp_path / "ikmer.meta"),
+                      str(tmp_path / f"raw.{tag}"),
+                      str(tmp_path / f"corr.{tag}"),
+                      str(tmp_path / f"bias.{tag}"), use_jax=use_jax)
+    for name in ("raw", "corr", "bias"):
+        assert (tmp_path / f"{name}.jax").read_bytes() == \
+            (tmp_path / f"{name}.np").read_bytes(), name

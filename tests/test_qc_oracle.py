@@ -1,4 +1,4 @@
-"""Second-oracle QC-harness test (VERDICT r1 items #4/#6/#8).
+"""Second-oracle QC-harness test.
 
 Runs pipeline/qc.run_qc_harness — the fn1a->fn2a3 loop of the
 reference's test/QC/*.sh scripts — over the reference's OWN bundled

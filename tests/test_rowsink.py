@@ -1,5 +1,5 @@
 """Streaming row sinks: .kam-scale side outputs must be O(1) memory with
-byte-identical files (VERDICT r2 weakness 3: unbounded kam_rows lists).
+byte-identical files.
 """
 
 import os

@@ -1,4 +1,4 @@
-"""Full production loop under shard_map (VERDICT r3 item 7): the
+"""Full production loop under shard_map: the
 ShardedAlignRunner drives run_file_native — prefilter window, dense
 survivor repack, device retry, checkpoint/resume, host referee, bubble
 maps, finalize — on the 8-device virtual CPU mesh, and every output must

@@ -86,9 +86,12 @@ def test_tie_resolution_matches_host_oracle(shared_pan):
     rpgg = RPGG(pan)
     P, L, E = 512, 128, 384
     drp = da.DeviceRPGG.build(rpgg, with_tre=False)
-    step = jax.jit(
-        da.make_step(drp, cfg, P, L, expand_cap=E, with_annot=False,
-                     jit=False), donate_argnums=0)
+    raw, tabs = da.make_step(drp, cfg, P, L, expand_cap=E,
+                             with_annot=False, jit=False)
+    jitted = jax.jit(raw, donate_argnums=1)
+
+    def step(*args):
+        return jitted(tabs, *args)
     host = HostAligner(RPGG(pan), cfg)
 
     pairs = []

@@ -4,7 +4,7 @@ bytes on the okam+bubbles golden flow (ties, overflow retries and the
 test2 boundary all present there), and same .aln in simmode.
 
 The equality-matmul path replaces the (locus, -nm) lax.sort with one
-batched bf16 equality-matmul + fused masked reduces (VERDICT r4 #5);
+batched bf16 equality-matmul + fused masked reduces;
 this test pins its decisions to the reference goldens byte-for-byte.
 """
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Focused full-step timer on the 512-locus bench panel (run on TPU).
+"""Focused full-step timer on the 512-locus bench panel (run on the
+accelerator).
 
 Env: DTK_BS_P=4096 DTK_BS_E=512 DTK_BS_STEPS=8 DTK_SPLIT_EXPAND=0|1
      DTK_BS_ERR=0.0
@@ -13,11 +14,6 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
-
-if os.environ.get("DTK_FORCE_CPU"):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 
 def main():

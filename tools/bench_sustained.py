@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Sustained >=100M-pair production funnel run (VERDICT r4 item #4).
+"""Sustained >=100M-pair production funnel run.
 
 Every scale number so far extrapolated from <=50M pairs; this tool runs
 ONE process over 100M pairs (a third of a 30x sample) against the
@@ -18,8 +18,8 @@ Env knobs:
   DTK_SUST_WINDOWS=10   number of 10M-pair windows
   DTK_SUST_PAIRS=10000000  pairs per window
   DTK_SUST_SYNTH_ONLY=1 synthesize the window files and exit (host-only;
-                        run before the TPU session)
-  DTK_SUST_OKAM=1       okam (.kam rows) on (default 1 per the VERDICT)
+                        run before the device session)
+  DTK_SUST_OKAM=1       okam (.kam rows) on (default 1)
   DTK_SUST_CKPT=1       auto-cadence checkpointing on (default 1)
 
 Emits one JSON line: sustained reads/s over the full run + window rates
@@ -35,7 +35,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-os.environ.setdefault("DTK_TABLE_ARGS", "1")
 os.environ.setdefault("DTK_PREFILTER_MULT", "16")
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")

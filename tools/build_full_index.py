@@ -2,7 +2,7 @@
 """Build the FULL production-scale index (~1.2e9 dbi keys, the
 reference's genome-wide RPGG size, /root/reference/README.md:22) on the
 host and cache it to disk.  Records build wall time, peak RSS, and table
-bytes for PERF.md (VERDICT r3 item 5).
+bytes for PERF.md.
 
 Usage: python tools/build_full_index.py [nloci] [kmers_per_locus]
 """

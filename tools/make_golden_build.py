@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Second-oracle goldens for the BUILD pipeline (VERDICT r1 item #8).
+"""Second-oracle goldens for the BUILD pipeline.
 
 Runs the reference's JointTRAnnotation -> GenPanGenomeGraph ->
 GenSerializedGraphAndIndex flow (GoodPanGenomeGraph.snakefile:156-391,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Second-oracle golden generator (VERDICT r1 item #8).
+"""Second-oracle golden generator.
 
 Round 1's goldens were all authored by tools/make_golden.py from
 synthetic data.  This freezes a second, builder-independent oracle from

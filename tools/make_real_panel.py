@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Real-sequence benchmark panel (VERDICT r3 item 3).
+"""Real-sequence benchmark panel.
 
 The round-2 bench panel was RNG motifs with uniform-random WGS
 background, which flatters the prefilter (random 21-mers almost never

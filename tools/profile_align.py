@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Stage breakdown of the current step on the 512-locus bench RPGG
-(DEBUG_STOP bisect; run on the TPU, one stage per jit)."""
+(DEBUG_STOP bisect; run on the accelerator, one stage per jit)."""
 
 import os
 import sys

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Sharded-index probe path at PRODUCTION table size (VERDICT r2 item #5).
+"""Sharded-index probe path at PRODUCTION table size.
 
 Round 2 validated `parallel/sharded_index.py` only at toy sizes; this
 loads a production-scale index (the full 1.2e9-slot build from
@@ -27,8 +27,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 os.environ["JAX_PLATFORMS"] = "cpu"
-# tables as jit args: multi-GB levels must not embed as HLO constants
-os.environ.setdefault("DTK_TABLE_ARGS", "1")
 flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
